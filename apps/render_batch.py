@@ -31,7 +31,6 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("Batch Renderer")
     p.add_argument("--scene", required=True)
     p.add_argument("--num-frames", type=int, default=1)
-    p.add_argument("--device", default="tpu", help="compat flag (unused)")
     p.add_argument("--fbsize", type=int, nargs=2, default=[1920, 1080])
     p.add_argument("--spp", type=int, default=1)
     p.add_argument("--pt", action="store_true", help="path tracing")
@@ -91,18 +90,13 @@ def orbit_camera(camera: Camera, t: float) -> Camera:
                          height=camera.height, kind=camera.kind)
 
 
-def main(argv=None) -> None:
-    import os
-
+def main(argv=None) -> api.Renderer:
+    """Run the CLI; returns the Renderer it drove."""
     import jax
 
-    # honor JAX_PLATFORMS even when a platform plugin swallows the env var
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        try:
-            jax.config.update("jax_platforms", plat)
-        except RuntimeError:
-            pass  # backend already initialized
+    from ovr_tpu.platform import enable_compile_cache
+
+    enable_compile_cache()
     args = parse_args(argv)
     scene = create_scene(args.scene)
     camera = scene.camera
@@ -150,7 +144,7 @@ def main(argv=None) -> None:
             mse = float(np.mean((pm(a) - pm(b)) ** 2))
             psnr = 10.0 * np.log10(1.0 / max(mse, 1e-12))
             print(f"psnr = {psnr:.2f} dB  (mse = {mse:.3e})")
-        return
+        return renderer
 
     if args.sequence:
         # Time-varying streaming (BASELINE config #3): disk IO of timestep
@@ -192,7 +186,7 @@ def main(argv=None) -> None:
         if n_done:
             fps = n_done / (time.perf_counter() - t_first)
             print(f"streaming fps = {fps:f}  ({n_done} timesteps)")
-        return
+        return renderer
 
     if args.num_frames == 1:
         for _ in range(args.warmup):
@@ -223,6 +217,7 @@ def main(argv=None) -> None:
             out = renderer.mapframe()
             save_image(ck.frame_path(idx), out["rgba"])
             ck.commit(idx, meta={"t": t, "camera": p.tolist()})
+    return renderer
 
 
 if __name__ == "__main__":

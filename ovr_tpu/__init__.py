@@ -1,15 +1,15 @@
-"""ovr_tpu — a TPU-native differentiable scientific volume renderer.
+"""ovr_tpu — a differentiable scientific volume renderer in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capability surface of
 VIDILabs/open-volume-renderer (structured-grid direct volume rendering through
 1D transfer functions, via front-to-back emission-absorption ray marching and
-delta-tracking volumetric path tracing), redesigned TPU-first:
+delta-tracking volumetric path tracing), redesigned around JAX:
 
 - scenes, volumes and transfer functions are JAX PyTrees (`ovr_tpu.core`),
 - rendering is a pure function `render(scene, camera, cfg) -> Frame` that jits,
   shards and differentiates (`ovr_tpu.render`, `ovr_tpu.api`),
-- the hot compositing loops are fused Pallas TPU kernels with custom VJPs
-  (`ovr_tpu.ops`),
+- the hot slice loop is a fused Pallas kernel (Triton route, NVIDIA GPUs)
+  with a custom VJP through a bounded-memory XLA adjoint (`ovr_tpu.ops`),
 - multi-chip/multi-host scaling uses `jax.sharding.Mesh` + `shard_map` with
   image-tile data parallelism and ring partial-compositing for bricked volumes
   (`ovr_tpu.parallel`),

@@ -56,7 +56,7 @@ def sample_volume(grid: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     x1, y1, z1 = i1[..., 0], i1[..., 1], i1[..., 2]
     fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
 
-    # 8-corner gather; XLA lowers these to dynamic-gather on TPU.
+    # 8-corner gather
     c000 = flat[lin(x0, y0, z0)]
     c100 = flat[lin(x1, y0, z0)]
     c010 = flat[lin(x0, y1, z0)]

@@ -1,14 +1,15 @@
-"""Image output: PNG/JPG via PIL, EXR via a minimal native writer.
+"""Image output: PNG and EXR by minimal native writers, JPG via PIL.
 
 Equivalent of the reference's `ovr/common/imageio.{h,cpp}` (stbi PNG/JPG with
-vertical flip + float->u8; tinyexr float EXR). The EXR writer emits an
-uncompressed scanline OpenEXR 2.0 file (FLOAT channels) with no external
-dependency.
+vertical flip + float->u8; tinyexr float EXR). The PNG writer emits 8-bit
+gray/RGB/RGBA with zlib, and the EXR writer an uncompressed scanline
+OpenEXR 2.0 file (FLOAT channels), neither with an external dependency.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
@@ -25,22 +26,50 @@ def timestamped_path(prefix: str = "screenshot", ext: str = ".png") -> str:
     return f"{prefix}-{time.strftime('%Y%m%d-%H%M%S')}{ext}"
 
 
+def encode_png(img: np.ndarray) -> bytes:
+    """PNG bytes of a uint8 (H, W), (H, W, 3) or (H, W, 4) image, rows
+    top to bottom (filter 0 on every row, zlib-deflated)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
 def save_image(path: str, img: np.ndarray, flip: bool = True) -> None:
-    """Save float (H, W, 3|4) (or uint8) image; PNG/JPG chosen by extension.
+    """Save float (H, W, 3|4) (or uint8) image; PNG/JPG chosen by extension
+    (JPG needs PIL; PNG needs nothing beyond numpy and zlib).
 
     `flip` mirrors the reference's vertical flip on save (imageio.cpp) —
     framebuffers are y-up, image files are y-down.
     """
-    from PIL import Image
-
     img = np.asarray(img)
     if img.dtype != np.uint8:
         img = to_uint8(img)
     if flip:
         img = img[::-1]
-    if path.lower().endswith((".jpg", ".jpeg")) and img.shape[-1] == 4:
-        img = img[..., :3]
-    Image.fromarray(img).save(path)
+    if path.lower().endswith((".jpg", ".jpeg")):
+        from PIL import Image
+
+        if img.shape[-1] == 4:
+            img = img[..., :3]
+        Image.fromarray(img).save(path)
+        return
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
 
 
 def save_exr(path: str, img: np.ndarray, flip: bool = True) -> None:

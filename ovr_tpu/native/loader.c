@@ -1,6 +1,6 @@
 /* Native raw-volume loader: mmap + multithreaded convert/normalize.
  *
- * The TPU-native equivalent of the reference's native data path
+ * The equivalent of the reference's native data path
  * (CreateArray3DScalarFromFile, ovr/scene.cpp:181-245: read + endian swap;
  * convert_array1d, ovr/devices/optix7/array.cpp:68-82: dtype conversion;
  * integer normalization rules, ovr/devices/optix7/array.h:68-106) plus the

@@ -8,8 +8,8 @@ abandoned "instant vnr" direction (`ovr/devices/optix7/render/`,
 correction and compositing then apply unchanged, and pixel gradients flow to
 the hash tables and MLP weights through the standard render path.
 
-MLP sizes default to MXU-friendly 64-wide layers; set `compute_dtype` to
-bfloat16 for MXU throughput (params stay float32).
+MLP layers default to 64 wide; set `compute_dtype` to bfloat16 for
+matmul throughput (params stay float32).
 """
 
 from __future__ import annotations

@@ -6,9 +6,9 @@ more hardware platforms", the vestigial tiny-cuda-nn include in
 `ovr/devices/optix7/render/`): a compact neural scalar field queried in place
 of the 3D texture.
 
-TPU notes: feature gathers are XLA dynamic-gathers; the per-level loop is
-unrolled (L is small and static) so XLA fuses the hashing arithmetic; the
-follow-on MLP (ovr_tpu.neural.field) carries the FLOPs on the MXU.
+Feature lookups are XLA gathers; the per-level loop is unrolled (L is small
+and static) so XLA fuses the hashing arithmetic; the follow-on MLP
+(ovr_tpu.neural.field) carries the FLOPs as matmuls.
 """
 
 from __future__ import annotations

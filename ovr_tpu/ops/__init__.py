@@ -1,4 +1,4 @@
-"""Fused TPU kernels (Pallas) and their bounded-memory adjoints."""
+"""The fused slice-loop kernel (Pallas) and the bounded-memory adjoints."""
 
 from ovr_tpu.ops.adjoint import over_scan
 

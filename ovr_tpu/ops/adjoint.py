@@ -84,7 +84,7 @@ def _slab_window(params, n_steps):
     This is THE backward-pass memory-traffic lever: a per-step `jax.vjp`
     over the full grid materializes a dense zeros-except-two-slabs grid
     cotangent and adds it to a full-size carry — O(n_steps * grid_bytes)
-    HBM traffic (~13 TB/step-sweep at 1024^3, the measured 14 s/step).
+    device-memory traffic (~13 TB per sweep at 1024^3, by shape count).
     Gathering the step's slab window BEFORE the vjp and scatter-adding
     only the window's cotangent cuts that to O(n_steps * slab_bytes).
     """

@@ -10,7 +10,7 @@ recurrence
 is associative in (C, T) pairs, so a ray can be split into segments that are
 integrated independently and combined in ray order — the volume-rendering
 analogue of blockwise/ring attention. This module exploits that seam to
-render volumes too large for one chip's HBM:
+render volumes too large for one device's memory:
 
 - the grid is split into Z-slabs ("bricks"), one per device along the
   `bricks` mesh axis (each device holds ONLY its slab + a one-voxel halo);
@@ -19,7 +19,8 @@ render volumes too large for one chip's HBM:
   `integrator.march_segment`;
 - partial (color, gradient, transmittance) triples are combined with the
   over-operator in per-ray front-to-back order by a `ppermute` ring exchange
-  over ICI (`ring_composite`), or a single `all_gather` (`gather_composite`).
+  over the device links (`ring_composite`; NCCL over NVLink on GPU hosts),
+  or a single `all_gather` (`gather_composite`).
 
 Brick geometry: for a (D, H, W) grid split into B slabs of S = D/B voxels,
 brick b stores padded voxels [b*S-1, b*S+S] (edge-clamped halo) so trilinear

@@ -1,7 +1,7 @@
 """Device-mesh construction for multi-chip / multi-host rendering.
 
 The reference is single-GPU by design (`ovr/devices/optix7/device_impl.cpp:
-370-372` hardcodes device 0); scaling here is TPU-native: a 2D
+370-372` hardcodes device 0); scaling here is a 2D
 `jax.sharding.Mesh` with a `tiles` axis (image-plane data parallelism — rays
 are embarrassingly parallel in the forward pass) and an optional `bricks`
 axis (the volume split along the ray direction; partial (color,

@@ -4,9 +4,10 @@ The reference is strictly single-process/single-GPU
 (`ovr/devices/optix7/device_impl.cpp:370-372`); this is the SURVEY §5.8 /
 BASELINE multi-host target: `jax.distributed.initialize` per process, one
 global mesh spanning every process's devices, image tiles sharded over the
-cross-host axis (DCN — forward rendering needs no communication) and volume
-bricks over the intra-host axis (ICI — the ring compositor's ppermute hops
-stay on-chip interconnect).
+cross-host axis (the network between hosts — forward rendering needs no
+communication) and volume bricks over the intra-host axis (the ring
+compositor's ppermute hops stay on the host's device links, NVLink on GPU
+hosts).
 
 Usage (one process per host):
 
@@ -36,8 +37,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None, **kw) -> None:
     """`jax.distributed.initialize` wrapper (idempotent per process).
 
-    With no arguments, relies on the cluster environment (TPU pods
-    auto-detect); pass coordinator/count/id explicitly elsewhere.
+    Pass the coordinator address (`host:port`), the process count and this
+    process's id; without them JAX needs a cluster environment it can
+    detect.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -49,7 +51,7 @@ def global_mesh(n_bricks: int = 1) -> Mesh:
 
     Devices are ordered process-major, so the `bricks` axis (stride-1,
     n_bricks consecutive devices) stays within one host — its ppermute ring
-    rides ICI — while `tiles` spans hosts over DCN. Requires each process's
+    rides the host's device links — while `tiles` spans hosts. Requires each process's
     device count to be a multiple of n_bricks.
     """
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))

@@ -1,6 +1,6 @@
 """Renderer plugin registry.
 
-TPU-native replacement for the reference's dlopen plugin loader
+Replacement for the reference's dlopen plugin loader
 (`ovr/common/dylink/Library.h:107-174`, `ObjectFactory.h:36-69`, used by
 `create_renderer`, `ovr/renderer.cpp:42-61`): out-of-tree renderer backends
 register a factory under a name, and `create_renderer(name)` resolves it —
@@ -61,7 +61,7 @@ def _ensure_builtins() -> None:
 
     _REGISTRY.setdefault("raymarch", _make)
     _REGISTRY.setdefault("pathtracer", _make_pt)
-    # reference device names map onto the native TPU renderer
+    # reference device names map onto the native renderer
     # (renderer.cpp:42-61 accepts "optix7" / "ospray")
     _REGISTRY.setdefault("optix7", _make)
     _REGISTRY.setdefault("ospray", _make)

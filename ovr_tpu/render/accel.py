@@ -1,7 +1,7 @@
 """Macrocell spatial partition: per-cell value ranges + transfer-function
 majorants, for empty-space skipping and delta tracking.
 
-TPU-native re-expression of the reference's single-level macrocell structure
+Re-expression of the reference's single-level macrocell structure
 (`ovr/devices/optix7/accel/spatial_partition.h`, `accel/sp_singlemc.cu`):
 
 - value ranges: one XLA `reduce_window` min/max over the voxel grid with an

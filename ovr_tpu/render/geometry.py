@@ -7,7 +7,7 @@ volume by the ray-marcher's two-trace scheme: trace non-volume geometry
 first, then blend the volume over it (`shaders_raymarching.cu:283-311`,
 `alpha_blend` `shaders_common.h:329-337`).
 
-TPU-native design: no BVH/RT-cores — triangle intersection is a dense,
+Design: no BVH/RT cores — triangle intersection is a dense,
 batched Möller-Trumbore evaluated as (rays x triangle-chunk) blocks inside a
 `lax.scan` (regular compute that XLA vectorizes well; meshes in scientific
 scenes are small — clip boxes, annotation glyphs). Isosurfaces are found by

@@ -23,7 +23,7 @@ Two drivers share the same step function:
 
 Empty-space skipping: given a `MacrocellGrid` (ovr_tpu.render.accel), steps in
 macrocells whose majorant is zero jump straight to the cell exit — the
-TPU-friendly reformulation of the vnr adaptive-sampling iterator
+batched reformulation of the vnr adaptive-sampling iterator
 (`ovr/devices/optix7/render/method_optix.cu:70-108`), lockstep across the ray
 batch instead of per-thread DDA.
 

@@ -3,11 +3,11 @@
 The reference shoots a full shadow ray per march sample
 (`ovr/devices/optix7/shaders_raymarching.cu:139-159`): each sample marches
 toward the light at 10x the base step until it leaves the volume. Per-thread
-early exit makes that tolerable on a SIMT GPU; in lockstep TPU execution the
+early exit makes that tolerable on a SIMT GPU; in a lockstep batched march the
 whole batch pays the worst-case shadow march on every step — O(max_steps x
 shadow_max_steps) volume samples per ray.
 
-TPU-native restructuring: because the shadow term depends only on (volume,
+Restructuring: because the shadow term depends only on (volume,
 transfer function, light direction) — not on the camera ray — precompute the
 accumulated shadow alpha toward the light once per commit on a coarse lattice
 over the volume's object space (each lattice point runs the reference's exact

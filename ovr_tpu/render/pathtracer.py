@@ -1,6 +1,6 @@
 """Delta-tracking (Woodcock) volumetric path tracer.
 
-TPU-native re-expression of the reference's second pipeline
+Batched re-expression of the reference's second pipeline
 (`ovr/devices/optix7/shaders_pathtracing.cu`): per pixel, track to a
 collision through the volume, scatter isotropically, repeat up to the scatter
 budget, collect ambient light on escape after >= 1 scatter:

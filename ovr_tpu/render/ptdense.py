@@ -1,12 +1,12 @@
-"""Dense TPU path tracer: discrete-ordinates radiative transfer.
+"""Dense path tracer: discrete-ordinates radiative transfer.
 
 The reference's path-tracing pipeline
 (`ovr/devices/optix7/shaders_pathtracing.cu:269-542`) delta-tracks each
 ray to a collision, scatters isotropically (albedo = TF color), and
 collects ambient light on escape after >= 1 scatter. Per-ray tracking is
-gather-bound on TPU (~0.1 Mrays/s-class), so this module re-expresses the
-*same transport equation* as dense lattice sweeps — the classic
-discrete-ordinates (S_N) method, which maps onto the VPU/MXU:
+gather-bound and divergent in a batched march, so this module re-expresses
+the *same transport equation* as dense lattice sweeps — the classic
+discrete-ordinates (S_N) method, which maps onto dense array ops:
 
   Let sigma(x) = alpha(x) * density_scale (the tracker's collision rate)
   and J(x) = expected radiance leaving a collision at x. The reference's

@@ -7,7 +7,7 @@ value per pixel (spatio-temporal blue noise or uniform), keeps pixels with
 noise < p, stream-compacts the (x, y) list with thrust, and launches exactly
 that many OptiX threads (`device_impl.cpp:304-342`).
 
-TPU-native reformulation with static shapes: rank pixels by noise/p and take
+Reformulation with static shapes: rank pixels by noise/p and take
 a fixed budget of the best-ranked — the same spatial distribution with a
 deterministic launch size (XLA requires static shapes; a variable-length
 compaction would recompile every frame). Rendered samples are scattered back

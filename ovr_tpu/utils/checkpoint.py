@@ -1,7 +1,7 @@
 """Checkpoint / resume.
 
 The reference has no persistence beyond scene/TF JSON and saved frames
-(SURVEY §5.3-5.4); the TPU framework adds two layers:
+(SURVEY §5.3-5.4); this framework adds two layers:
 
 - `save_pytree` / `load_pytree` / `latest_step`: training-state snapshots
   via orbax when available, with a dependency-free .npz fallback (flat

@@ -4,7 +4,7 @@ Equivalents of the reference's measurement apparatus (SURVEY.md §5.1):
 `vidi::details::HighPerformanceTimer` (+Bandwidth/Stack variants),
 `FPSCounter`/`HistoryFPSCounter` (`vidi_fps_counter.h`), and `CsvLogger`
 (`vidi_logger.h` -> benchmarks/log_<timestamp>.csv). JAX-aware: `Timer.stop`
-can fence on a device value (`jax.block_until_ready`) for honest GPU/TPU
+can fence on a device value (`jax.block_until_ready`) for honest device
 timing — the analogue of CUDA_SYNC_CHECK before the reference's timer stop.
 """
 

@@ -24,9 +24,6 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 
 from ovr_tpu import api  # noqa: E402

@@ -110,7 +110,7 @@ class TestLights:
                                method="shearwarp").resolved(scene)
         ref = api.render(scene, cfg)
         cfg_p = dataclasses.replace(
-            cfg, sw=dataclasses.replace(cfg.sw, pallas=True))
+            cfg, sw=dataclasses.replace(cfg.sw, pallas=True, interpret=True))
         out = api.render(scene, cfg_p)
         np.testing.assert_allclose(np.asarray(out.rgba),
                                    np.asarray(ref.rgba), atol=5e-5)

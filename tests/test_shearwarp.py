@@ -35,6 +35,13 @@ def _render_pair(scene, w=48, h=40, rate=48.0, shading="none", **kw):
     return fm, fs
 
 
+def _kernel_cfg(cfg):
+    """The plan with the fused kernel forced on, in the Pallas interpreter
+    (the CPU has no kernel of its own)."""
+    return dataclasses.replace(
+        cfg, sw=dataclasses.replace(cfg.sw, pallas=True, interpret=True))
+
+
 def _premult(frame):
     rgba = np.asarray(frame.rgba)
     return rgba[..., :3] * rgba[..., 3:4], rgba[..., 3]
@@ -133,7 +140,7 @@ class TestParity:
         assert np.quantile(err, 0.95) < 0.08
 
     def test_pallas_fused_slices_match_overscan(self, small_grid):
-        """The fused Pallas slice kernel (interpret mode on CPU) matches
+        """The fused slice kernel (Pallas interpreter on the CPU) matches
         the over_scan reference bit-closely."""
         cam = Camera.create(from_=(0.5, 0.5, -1.8), at=(0.5, 0.5, 0.5),
                             fovy=45.0)
@@ -143,8 +150,7 @@ class TestParity:
                                method="shearwarp").resolved(scene)
         assert not cfg.sw.pallas  # CPU backend: XLA path by default
         ref = api.render(scene, cfg)
-        cfg_p = dataclasses.replace(
-            cfg, sw=dataclasses.replace(cfg.sw, pallas=True))
+        cfg_p = _kernel_cfg(cfg)
         out = api.render(scene, cfg_p)
         np.testing.assert_allclose(np.asarray(out.rgba),
                                    np.asarray(ref.rgba), atol=2e-5)
@@ -162,9 +168,7 @@ class TestParity:
                                    shading=shading,
                                    method="shearwarp").resolved(scene)
             ref = api.render(scene, cfg)
-            cfg_p = dataclasses.replace(
-                cfg, sw=dataclasses.replace(cfg.sw, pallas=True))
-            out = api.render(scene, cfg_p)
+            out = api.render(scene, _kernel_cfg(cfg))
             np.testing.assert_allclose(np.asarray(out.rgba),
                                        np.asarray(ref.rgba), atol=5e-5,
                                        err_msg=shading)
@@ -178,8 +182,7 @@ class TestParity:
         cfg = api.RenderConfig(width=16, height=16, sampling_rate=12.0,
                                shading="none",
                                method="shearwarp").resolved(scene)
-        cfg_p = dataclasses.replace(
-            cfg, sw=dataclasses.replace(cfg.sw, pallas=True))
+        cfg_p = _kernel_cfg(cfg)
 
         def loss(alpha, c):
             sc = dataclasses.replace(
@@ -191,61 +194,6 @@ class TestParity:
         g_pal = np.asarray(jax.grad(loss)(scene.tfn.alpha, cfg_p))
         scale = np.abs(g_ref).max() + 1e-9
         np.testing.assert_allclose(g_pal / scale, g_ref / scale, atol=1e-3)
-
-    def test_pallas_windowed_rows_match_full(self, small_grid):
-        """A forced small source-row window (the 1024^3-scale fast path)
-        reproduces the full-row kernel: the window covers every nonzero hat
-        term, so sums differ only by 1-ulp weight rounding from the shifted
-        local coordinates."""
-        cam = Camera.create(from_=(0.5, 0.5, -1.8), at=(0.5, 0.5, 0.5),
-                            fovy=45.0)
-        scene = _scene(small_grid, cam)
-        for shading in ("none", "diffuse", "shadow"):
-            cfg = api.RenderConfig(width=32, height=24, sampling_rate=16.0,
-                                   shading=shading,
-                                   method="shearwarp").resolved(scene)
-            full = api.render(scene, dataclasses.replace(
-                cfg, sw=dataclasses.replace(cfg.sw, pallas=True)))
-            win = api.render(scene, dataclasses.replace(
-                cfg, sw=dataclasses.replace(cfg.sw, pallas=True,
-                                            r_tile=16, win_r=16)))
-            np.testing.assert_allclose(np.asarray(win.rgba),
-                                       np.asarray(full.rgba), atol=1e-5,
-                                       err_msg=shading)
-            np.testing.assert_allclose(np.asarray(win.grad),
-                                       np.asarray(full.grad), atol=1e-5,
-                                       err_msg=shading)
-
-    def test_pallas_column_windows_match_full(self):
-        """The column-windowed contraction (win_c: dynamic-sliced K window
-        out of the transposed row-resample scratch) reproduces the
-        full-Nc kernel — window coverage + hat-zero exclusion, columns
-        edition of the row-window test. The policy enables only when the
-        worst-case chunk span is well under the plane width: a wide
-        256-column volume viewed orthographically through a wide fan."""
-        n = 256
-        ax = np.linspace(0, 1, n, dtype=np.float32)
-        g = (0.5 + 0.45 * np.sin(9 * ax[None, None, :])
-             * np.cos(7 * ax[None, :, None])
-             * np.sin(5 * ax[:, None, None] + 0.3)).astype(np.float32)
-        cam = Camera.create(from_=(0.5, 0.5, -2.0), at=(0.5, 0.5, 0.5),
-                            height=0.12, kind="orthographic")
-        scene = _scene(g, cam)
-        cfg = api.RenderConfig(width=640, height=64, sampling_rate=24.0,
-                               shading="diffuse", sw_col_win=True,
-                               method="shearwarp").resolved(scene)
-        sw = cfg.sw
-        assert sw.win_c > 0 and sw.col_chunk == 128, (sw.win_c,
-                                                      sw.col_chunk)
-        full = api.render(scene, dataclasses.replace(
-            cfg, sw=dataclasses.replace(sw, pallas=True, win_c=0,
-                                        col_chunk=0)))
-        win = api.render(scene, dataclasses.replace(
-            cfg, sw=dataclasses.replace(sw, pallas=True)))
-        np.testing.assert_allclose(np.asarray(win.rgba),
-                                   np.asarray(full.rgba), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(win.grad),
-                                   np.asarray(full.grad), atol=1e-5)
 
     def test_shaded_backward_matches_scan_autodiff(self, small_grid,
                                                    monkeypatch):
